@@ -27,10 +27,10 @@ K_COLOR_DIFF_COEF = 10.0
 K_SOFTMAX_SHARPNESS = 10.0
 K_FLOW_MAG_COEF = 100.0
 
-# Canvases at least this large take the gather-free tiled sampler (the
-# XLA gather path runs ~100x below VPU throughput on TPU and was 226 of
-# the 258 ms finish stage at the 36 MP headline); smaller canvases --
-# including the per-pixel oracle test shapes -- keep the exact gather.
+# Canvases at least this large take the gather-free tiled sampler
+# (whether the exact gather is faster on the GPU is not measured yet);
+# smaller canvases -- including the per-pixel oracle test shapes --
+# keep the exact gather.
 # The tiled sampler's residual-clamp deviations are gated by
 # tests/test_pipeline.py::test_combine_tiled_sampler_close_to_exact and
 # the default reference-binary golden (900x400 exercises this path).

@@ -1,4 +1,4 @@
-"""Pixflow: pyramidal coarse-to-fine dense optical flow, TPU-native.
+"""Pixflow: pyramidal coarse-to-fine dense optical flow in JAX.
 
 Re-design of the reference solver (CPU/PixFlow.hpp:28-457).  The
 algorithmic skeleton is identical -- downscale, grey+alpha, pre-blur,
@@ -66,14 +66,14 @@ def _build_pyramid(img: jax.Array, sizes: list[tuple[int, int]]) -> list[jax.Arr
 #
 # The ~40-level 0.9-factor pyramid fully unrolled in one jit produces an
 # XLA graph of ~5k ops *per level* (~200k ops at the 36 MP headline),
-# which the TPU compiler chews on for hours.  The coarse tail carries
+# which takes the compiler very long to chew on.  The coarse tail carries
 # almost no runtime work (level areas decay by 0.81x) but the same
 # per-level graph, so: group consecutive coarse levels into "rungs" that
 # share the padded shape of the rung's finest member and lax.scan over
 # them -- the level body is traced/compiled ONCE per rung.  The
 # inter-level flow upsample becomes a per-level banded resize matrix,
 # materialised on device from compact 4-tap plans carried as scan
-# inputs: two matmuls on the MXU, bit-identical weights to the static
+# inputs: two matmuls, bit-identical weights to the static
 # resize (reference form: ops/image.resize_axis_matrix).
 #
 # Padding semantics: images are edge-replicated into the pad (Sobel at
@@ -139,7 +139,7 @@ def _plan_to_matrix(idx: jax.Array, w: jax.Array, n_pad: int) -> jax.Array:
 
 def _mat_resize_flow(f: jax.Array, ah: jax.Array, aw: jax.Array) -> jax.Array:
     """Resample a (..., H, W, 2) flow with per-axis resize matrices on
-    channel-split planes (out = ah @ plane @ aw^T), f32 MXU precision."""
+    channel-split planes (out = ah @ plane @ aw^T), f32 HIGHEST precision."""
     lead = f.shape[:-3]
     hp, wp = f.shape[-3:-1]
     p = jnp.moveaxis(f, -1, 0).reshape(-1, hp, wp)
@@ -393,18 +393,19 @@ def _level_core(
     (CPU/PixFlow.hpp:306-339 after gradients/init): ``phases`` rounds of
     relaxation + median, then the low-alpha diffusion (C8b).
 
-    ``knd`` is an optional kernel namespace with the
-    ``ops.pallas.kernels`` entry signatures; the hybrid sharded solver
-    passes ``ops.pallas.partition.PartitionedKernels`` so each call
-    partitions over the leading (tile) batch dim under GSPMD instead of
-    running inside a shard_map body (see parallel/hybrid.py).  ``None``
-    uses the plain kernels.
+    ``knd`` is an optional namespace with a ``relax_phase_batched`` entry
+    (the signature of ``ops.pallas.relax.relax_phase_batched``); the
+    hybrid sharded solver passes ``ops.pallas.partition.
+    PartitionedKernels`` so the kernel partitions over the leading (tile)
+    batch dim under GSPMD (see parallel/hybrid.py).  ``None`` uses the
+    plain kernel module.  Whether the kernel runs at all is
+    ``relax.use_relax_kernel``'s choice.
     """
-    from panorama_opticalflow_tpu.ops.pallas import kernels
+    from panorama_opticalflow_tpu.ops.pallas import relax
     from panorama_opticalflow_tpu.ops.relax_fast import (
         relax_phase_fast, warp_by_flow_tiled)
 
-    k = knd if knd is not None else kernels
+    k = knd if knd is not None else relax
     nb, h, w = i0x.shape
 
     update_mask = ((a0 > params.update_alpha_threshold)
@@ -415,74 +416,26 @@ def _level_core(
 
     use_fast = params.relax_impl == "fast" and not coarsest
     if use_fast:
-        pallas_ok = (kernels.on_tpu() and params.use_pallas
-                     and h * w >= params.pallas_min_pixels)
-        warp_pallas = (kernels.on_tpu() and params.use_pallas
-                       and params.warp_pallas)
-
-        def warp_b(img_b, f_b):
-            # per-phase gradient recentring (batched over B)
-            if warp_pallas:
-                return k.warp_tiled_pallas(img_b, f_b)
-            return jax.vmap(warp_by_flow_tiled)(img_b, f_b)
-
-        if pallas_ok and phases == 1 and params.fuse_level_blurs:
-            # fused single-phase level: the relax kernel computes the
-            # blurred-flow target in VMEM (f_base == the flow it blurs
-            # when there is exactly one phase) and a fused kernel does
-            # median + diffusion in one HBM round trip
-            f_base = flow
-            w1g_warp = warp_b(i1g, f_base)
-            fx, fy = k.relax_phase_pallas(
-                flow[..., 0], flow[..., 1],
-                f_base[..., 0], f_base[..., 1],
-                w1g_warp[..., 0], w1g_warp[..., 1],
-                i0x, i0y, None, None,
-                update_mask.astype(jnp.float32),
-                params, iters, params.fast_window,
-                tile=params.pallas_tile, fuse_bf=True)
-            f = jnp.stack([fx, fy], axis=-1)
-            c = 1.0 - a0 * a1                    # (B, H, W) per direction
-            out = k.median5_diffuse_pallas(
-                _as_planes(f), c,
-                params.blurred_flow_kernel_width,
-                params.blurred_flow_sigma)
-            return _from_planes(out, nb)
-
+        use_kernel = relax.use_relax_kernel(h, w, params)
         blurred_flow = _from_planes(jax.vmap(lambda f: im.gaussian_blur(
             f, params.blurred_flow_kernel_width,
             params.blurred_flow_sigma))(_as_planes(flow)), nb)
-
-        def median_flow(f):
-            if pallas_ok:
-                med = k.median5_pallas(_as_planes(f))
-            else:
-                med = jax.vmap(im.median5)(_as_planes(f))
-            return _from_planes(med, nb)
 
         def phase_body(f, _):
             # re-centre per phase: warp the gradient pair by the current
             # flow once, then relax bounded residuals against it
             f_base = f
-            w1g_warp = warp_b(i1g, f_base)
-            if pallas_ok:
-                fx, fy = k.relax_phase_pallas(
-                    f[..., 0], f[..., 1],
-                    f_base[..., 0], f_base[..., 1],
-                    w1g_warp[..., 0], w1g_warp[..., 1],
-                    i0x, i0y,
-                    blurred_flow[..., 0], blurred_flow[..., 1],
-                    update_mask.astype(jnp.float32),
-                    params, iters, params.fast_window,
-                    tile=params.pallas_tile)
-                f = jnp.stack([fx, fy], axis=-1)
+            w1g_warp = jax.vmap(warp_by_flow_tiled)(i1g, f_base)
+            args = (f, f_base, w1g_warp, i0x, i0y, blurred_flow, update_mask)
+            if use_kernel:
+                f = k.relax_phase_batched(*args, params, iters,
+                                          params.fast_window)
             else:
                 f = jax.vmap(
-                    lambda fc, fb, wg, gx_, gy_, bf, m: relax_phase_fast(
-                        fc, fb, wg, gx_, gy_, bf, m, params, iters,
-                        D=params.fast_window)
-                )(f, f_base, w1g_warp, i0x, i0y, blurred_flow, update_mask)
-            return median_flow(f), None
+                    lambda *a: relax_phase_fast(*a, params, iters,
+                                                D=params.fast_window)
+                )(*args)
+            return _from_planes(jax.vmap(im.median5)(_as_planes(f)), nb), None
 
         # phases as lax.scan: the phase body (the bulk of the level's
         # graph) is traced/compiled once per level instead of per phase
@@ -635,7 +588,7 @@ def compute_optical_flow(
 # fixed cost at the ~30-40 small pyramid levels -- and rebuilds the same
 # image pyramids twice.  Here both directions share one set of pyramids
 # and every per-level op processes a leading batch axis of 2 (vmap on the
-# XLA path; a leading grid dimension in the Pallas kernels), so per-level
+# XLA path and through the relax kernel's batching rule), so per-level
 # launch count matches a single direction.  Semantics are identical to
 # two compute_optical_flow calls.
 
@@ -643,9 +596,8 @@ def compute_optical_flow(
 def _as_planes(f: jax.Array) -> jax.Array:
     """(B, H, W, 2) flow -> (2B, H, W) channel-split planes.
 
-    A trailing dim of 2 makes the TPU lane dimension 2 wide and wastes
-    the VPU; the heavy per-level flow ops (15x15 blurs, medians,
-    resizes) run on planes instead."""
+    The heavy per-level flow ops (15x15 blurs, medians, resizes) run
+    on 2-D planes instead of a trailing dim of 2."""
     b, h, w, _ = f.shape
     return jnp.moveaxis(f, 3, 1).reshape(b * 2, h, w)
 
@@ -686,7 +638,7 @@ def patch_match_level_batched(
         # zero/search init + exact relaxation on a <=pyr_min_image_size
         # twin of this level (identical cost to the reference-rule
         # coarsest -- the exact path is iteration-latency-bound and
-        # scales badly with area, probe_coarsest.log), then refine THIS
+        # scales badly with area), then refine THIS
         # level as a normal fast-path level off the upsampled init.
         tiny = _sub_floor_sizes(*imgs.shape[1:], params)
         imgs_t, alphas_t = imgs, alphas
@@ -774,7 +726,7 @@ def compute_optical_flow_pair(
     hints = (hint01, hint10)
 
     def vresize(f, s, m):
-        # resize on channel-split planes (trailing dim 2 wastes lanes)
+        # resize on channel-split planes
         return _from_planes(jax.vmap(lambda x: im.resize(x, s, m))(
             _as_planes(f)), f.shape[0])
 

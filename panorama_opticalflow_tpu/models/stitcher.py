@@ -1,7 +1,7 @@
 """Stitch orchestration: canvas map, overlap extraction, seam-blend field,
 and final composite.
 
-TPU-native re-design of the reference ``Stitchtools`` class
+Array-program re-design of the reference ``Stitchtools`` class
 (CPU/StitchTool.{hpp,cpp}): instead of stateful Mats and per-pixel loops,
 each stage is a pure, jit-compatible function over the shared
 equirectangular canvas.  Canvas images are (H, W, 4) uint8 RGBA where

@@ -1,9 +1,9 @@
 """Core 2-D image primitives as pure, statically-shaped JAX array programs.
 
-These are TPU-native re-designs of the OpenCV primitives the reference
+These are array-program re-designs of the OpenCV primitives the reference
 pipeline leans on (resize, GaussianBlur, Sobel, medianBlur, blur, cvtColor,
 threshold -- see SURVEY.md L0/L1).  Everything is separable / stencil-shaped
-so XLA can fuse onto the VPU; resizes are expressed as static gathers +
+so XLA can fuse it; resizes are expressed as static gathers +
 weighted sums (the per-level weights are compile-time constants).
 
 Semantics match OpenCV where the reference depends on them:
@@ -104,14 +104,12 @@ def resize(img: jax.Array, out_hw: tuple[int, int], method: Method) -> jax.Array
 
     Matches cv::resize INTER_LINEAR / INTER_CUBIC sampling (no anti-alias
     filter, like OpenCV).  2-D planes (the hot path: every pyramid level
-    and flow upsample runs on channel-split planes) resample as two MXU
-    matmuls with on-device banded matrices -- XLA's gather runs far
-    below VPU throughput on TPU and the transpose-wrapped column pass
-    made resizes a per-level fixed cost (r4 flowlevel: ~5-9 ms/level
-    nearly size-independent).  Tap weights are identical to the gather
-    formulation; only the f32 accumulation order differs (HIGHEST
-    precision, no bf16).  Arrays with a channel dim keep the gather
-    path (cold: once-per-pair RGBA preprocessing).
+    and flow upsample runs on channel-split planes) resample as two
+    matmuls with on-device banded matrices instead of a gather plus a
+    transpose-wrapped column pass.  Tap weights are identical to the
+    gather formulation; only the f32 accumulation order differs
+    (HIGHEST precision: no TF32, no bf16).  Arrays with a channel dim
+    keep the gather path (cold: once-per-pair RGBA preprocessing).
     """
     out_h, out_w = out_hw
     x = img.astype(jnp.float32)
@@ -186,10 +184,8 @@ def _pad_spatial(img: jax.Array, ph: int, pw: int, mode: str) -> jax.Array:
 def _conv_axis0(img: jax.Array, kernel: jax.Array, pad_mode: str,
                 axis: int = 0) -> jax.Array:
     """1-D correlation along ``axis`` with symmetric padding, as
-    shift+fma (pure VPU; no conv ops, no transposes -- a physical
-    (H, W) swapaxes on TPU is a lane/sublane shuffle that costs multi-
-    ms at pyramid scales and dominated the per-level fixed term until
-    round 5)."""
+    shift+fma (no conv ops, no transposes: XLA fuses the taps into one
+    elementwise pass)."""
     k = kernel.shape[0]
     r = k // 2
     pad = [(0, 0)] * img.ndim
@@ -221,23 +217,52 @@ def sobel_y(img: jax.Array) -> jax.Array:
     return p[2:] - p[:-2]
 
 
-def median5(img: jax.Array) -> jax.Array:
-    """5x5 median filter, BORDER_REPLICATE (cv::medianBlur semantics).
-
-    Stacks the 25 window shifts and takes rank 12 -- a fixed sorting
-    problem the VPU handles without data-dependent control flow.
-    Works on (H, W) or (H, W, C).
-    """
+def _median5_shifts(img: jax.Array) -> list[jax.Array]:
     p = _pad_spatial(img, 2, 2, "edge")
     h, w = img.shape[:2]
-    shifts = [
+    return [
         jax.lax.slice(p, (dy, dx) + (0,) * (img.ndim - 2),
                       (dy + h, dx + w) + img.shape[2:])
         for dy in range(5)
         for dx in range(5)
     ]
-    stack = jnp.stack(shifts, axis=0)
-    return jnp.sort(stack, axis=0)[12]
+
+
+@functools.lru_cache(maxsize=None)
+def batcher_pairs(n: int) -> tuple[tuple[int, int], ...]:
+    """Compare-exchange pairs of Batcher's bitonic sorting network for
+    n = 2^k inputs (ascending)."""
+    assert n & (n - 1) == 0, "power of two"
+    pairs = []
+    k = 1
+    while k < n:
+        j = k
+        while j >= 1:
+            for i in range(n):
+                ixj = i ^ j
+                if ixj > i:
+                    if (i & (k << 1)) == 0:
+                        pairs.append((i, ixj))
+                    else:
+                        pairs.append((ixj, i))
+            j >>= 1
+        k <<= 1
+    return tuple(pairs)
+
+
+def median5(img: jax.Array) -> jax.Array:
+    """5x5 median filter, BORDER_REPLICATE (cv::medianBlur semantics),
+    on (H, W) or (H, W, C).
+
+    Rank 12 of the 25 window shifts through a fixed 32-way sorting
+    network (padded with +inf): elementwise min/max that XLA fuses into
+    one pass -- the same values as sorting the 25-stack, at a fraction
+    of the cost (PERF.md)."""
+    v = _median5_shifts(img)
+    v = v + [jnp.full_like(v[0], jnp.inf)] * 7
+    for a, b in batcher_pairs(32):
+        v[a], v[b] = jnp.minimum(v[a], v[b]), jnp.maximum(v[a], v[b])
+    return v[12]
 
 
 def box_blur(img: jax.Array, ksize_w: int, ksize_h: int) -> jax.Array:

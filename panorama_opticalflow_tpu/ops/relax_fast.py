@@ -1,10 +1,10 @@
-"""Gather-free relaxation: the TPU speed-of-light path for pixflow.
+"""Gather-free relaxation: the fast path of the pixflow solver.
 
-XLA's dynamic gather on TPU runs ~100x below VPU throughput, so the
-reference error function's per-candidate bilinear fetch
-(CPU/PixFlow.hpp:407-425,427-456) cannot be a gather in the hot loop.
-This module reformulates the per-level relaxation with two standard
-coarse-to-fine identities:
+The reference error function's per-candidate bilinear fetch
+(CPU/PixFlow.hpp:407-425,427-456) is a data-dependent gather in the hot
+loop.  This module reformulates the per-level relaxation with two
+standard coarse-to-fine identities, so that every sample is a fixed
+stencil:
 
 1. **Warp recentering**: each level's incoming flow ``f_base`` (the
    upsampled coarser-level estimate) is applied to the gradient images
@@ -14,25 +14,24 @@ coarse-to-fine identities:
    upsampled), ``I1g(x + f) ~ W1g(x + delta)`` to first order.
 2. **Bounded bilinear as hat-weighted shift-select**: a bilinear sample
    at a bounded offset is sum_{o in window} hat(dy-oy) hat(dx-ox) *
-   shift(img, o) -- pure VPU fma over statically-shifted views, which XLA
-   fuses into one pass.  The same pass yields neighbouring-offset sample
-   maps (for the 4 propagation candidates) and the analytic derivative
-   maps (for the descent step) at marginal cost.
+   shift(img, o) -- fma over statically-shifted views, which XLA fuses.
+   The same pass yields neighbouring-offset sample maps (for the 4
+   propagation candidates) and the analytic derivative maps (for the
+   descent step) at marginal cost.
 
 The base warp itself runs per tile: a coarse vmapped dynamic_slice picks
 each tile's window at the tile-mean integer offset (one coarse-grained
 gather of ~1k blocks), then the smooth residual is applied with two 1-D
 hat passes.
 
-Fidelity: validated against the exact-gather path (tests/test_relax_fast
-and the oracle EPE/SSIM gates).  Deviations are confined to clamps:
+``relax_phase_fast`` is also the reference of the GPU relax kernel
+(ops/pallas/relax.py).  Fidelity: validated against the exact-gather
+path (the oracle EPE/SSIM gates).  Deviations are confined to clamps:
 residual displacement beyond D per level and intra-tile flow variation
 beyond the warp margin.
 """
 
 from __future__ import annotations
-
-from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -62,8 +61,7 @@ def warp_by_flow_tiled(img: jax.Array, flow: jax.Array, tile_h: int = 64,
     h, w, c = img.shape
     hp = -(-h // tile_h) * tile_h
     wp = -(-w // tile_w) * tile_w
-    # channel-split planes: a trailing dim of c (= 2 for gradient pairs)
-    # would make the TPU lane dimension c wide and waste the VPU
+    # channel-split planes (c = 2 for gradient pairs)
     img_p = jnp.pad(jnp.moveaxis(img, 2, 0),
                     ((0, 0), (0, hp - h), (0, wp - w)), mode="edge")
     flow_p = jnp.pad(flow, ((0, hp - h), (0, wp - w), (0, 0)), mode="edge")
@@ -118,30 +116,6 @@ def warp_by_flow_tiled(img: jax.Array, flow: jax.Array, tile_h: int = 64,
     return jnp.moveaxis(out, 0, 2)[:h, :w]
 
 
-
-# A third warp variant -- a GLOBAL-shift hat warp (one mean-flow
-# dynamic_slice instead of the per-tile block gather) -- lived here in
-# rounds 3-4 as `warp_by_flow_shift`.  It was DELETED in round 5: the
-# TPU backend corrupted its output shape-dependently (black top band,
-# head-to-head SSIM 0.416 vs the reference binary at 2250x1000) while
-# every CPU gate stayed green (r4 bisect, artifacts/h2h_*.log), the
-# suspected trigger being the carry-dependent dynamic_slice offset
-# inside the scanned rung body.  The Pallas warp kernel covers its
-# fixed-overhead regime (engaged at all levels on TPU, bit-exact vs the
-# XLA warp), so the path was dead-but-armed risk with no remaining
-# upside.  See ROADMAP r4 item 3 / VERDICT r4 weak #3.
-
-
-def warp_by_flow_auto(img: jax.Array, flow: jax.Array,
-                      params: FlowParams) -> jax.Array:
-    """Per-level warp dispatch: the Pallas dynamic-offset-DMA kernel on
-    TPU, the XLA per-tile block gather otherwise."""
-    if params.use_pallas and params.warp_pallas:
-        from panorama_opticalflow_tpu.ops.pallas import kernels
-
-        if kernels.on_tpu():
-            return kernels.warp_tiled_pallas(img, flow)
-    return warp_by_flow_tiled(img, flow)
 
 
 def sample_maps(w1g_pad: jax.Array, dx: jax.Array, dy: jax.Array, D: int,
@@ -248,9 +222,6 @@ def relax_phase_fast(
     the recentering approximation."""
     h, w = i0x.shape
     pad = D + 1
-    if params.w1_bf16:
-        # quantise once at load, arithmetic stays f32 (kernel parity)
-        w1g = w1g.astype(jnp.bfloat16).astype(jnp.float32)
     w1g_pad = jnp.pad(w1g, ((pad, pad), (pad, pad), (0, 0)), mode="edge")
     inf = jnp.float32(jnp.inf)
     valid_l = jax.lax.broadcasted_iota(jnp.int32, (h, w), 1) >= 1

@@ -9,9 +9,9 @@ Two samplers with the reference's exact boundary semantics:
   (CPU/OpticalFlow.cpp:9-28): truncation to int, single horizontal wrap
   (the 360-degree canvas), vertical clamp.
 
-Both are expressed as flat-index gathers; XLA lowers them to TPU gather
-ops, and the Pallas relaxation kernel re-implements the bilinear variant
-on VMEM-resident tiles for the hot path.
+Both are expressed as flat-index gathers.  The flow solver's hot path
+samples through the gather-free hat window of ops/relax_fast.py
+instead.
 """
 
 from __future__ import annotations
@@ -76,9 +76,8 @@ def sample_nearest_wrap_tiled(
     tile_h: int = 64, tile_w: int = 128, margin: int = 8, max_off: int = 96,
 ) -> jax.Array:
     """Gather-free ``sample_nearest_wrap``: the production path for large
-    canvases (XLA's dynamic gather on TPU runs ~100x below VPU
-    throughput; the two per-pair combine gathers were 226 of the 258 ms
-    finish stage at the 9000x4000 headline).
+    canvases (whether the exact gather is faster on the GPU is not
+    measured yet).
 
     Identical semantics -- C-trunc, single horizontal wrap, vertical
     clamp -- expressed as a per-tile block fetch plus bounded residual

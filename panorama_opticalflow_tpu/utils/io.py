@@ -19,12 +19,23 @@ class PanoIOError(RuntimeError):
     """Image read/write failure (the reference's VrCamException)."""
 
 
+def _pil_image():
+    """PIL.Image, imported only where files are read or written."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            "reading or writing image files needs Pillow "
+            "(pip install pillow); the stitch itself does not") from e
+    return Image
+
+
 def read_image_rgba(path: str) -> np.ndarray:
     """Read an image file as (H, W, 4) uint8 RGBA; raises on failure
     (imreadExceptionOnFail, CPU/util.cpp:19-26).  3-channel inputs get an
     opaque alpha like the reference's CV_8UC3 -> BGRA promotion
     (CPU/main.cpp:58)."""
-    from PIL import Image
+    Image = _pil_image()
 
     if not os.path.exists(path):
         raise PanoIOError(f"failed to load image: {path}")
@@ -39,7 +50,7 @@ def read_image_rgba(path: str) -> np.ndarray:
 def write_image(path: str, img: np.ndarray) -> None:
     """Write (H, W, 4) or (H, W, 3) uint8; raises on failure
     (imwriteExceptionOnFail, CPU/util.cpp:28-34)."""
-    from PIL import Image
+    Image = _pil_image()
 
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     try:

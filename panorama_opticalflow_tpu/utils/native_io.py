@@ -2,7 +2,7 @@
 plus a double-buffered threaded loader.
 
 The native path releases the GIL for whole-image PNG encode/decode, so
-the prefetch thread overlaps host I/O with TPU compute -- the runtime
+the prefetch thread overlaps host I/O with device compute -- the runtime
 role the reference fills with its C++ util layer (CPU/util.cpp:19-46).
 Falls back to PIL transparently when the shared library is missing.
 """

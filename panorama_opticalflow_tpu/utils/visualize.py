@@ -10,6 +10,18 @@ from __future__ import annotations
 import numpy as np
 
 
+def _cv2():
+    """OpenCV, imported only by the visualisers that draw with it."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(
+            "the colour-wheel and vector-field flow visualisers need "
+            "OpenCV (pip install opencv-python); the stitch itself does "
+            "not") from e
+    return cv2
+
+
 def flow_as_grey_disparity(flow: np.ndarray) -> np.ndarray:
     """visualizeFlowAsGreyDisparity (CPU/OpticalFlow.cpp:147-158)."""
     disp = np.asarray(flow)[..., 0].astype(np.float64)
@@ -21,7 +33,7 @@ def flow_as_grey_disparity(flow: np.ndarray) -> np.ndarray:
 def flow_color_wheel(flow: np.ndarray) -> np.ndarray:
     """visualizeFlowColorWheel (CPU/OpticalFlow.cpp:185-204): hue from
     direction, brightness from magnitude; returns (H, W, 3) uint8 RGB."""
-    import cv2
+    cv2 = _cv2()
 
     f = np.asarray(flow, np.float64)
     mag = np.sqrt(f[..., 0] ** 2 + f[..., 1] ** 2)
@@ -41,7 +53,7 @@ def flow_color_wheel(flow: np.ndarray) -> np.ndarray:
 def flow_as_vector_field(flow: np.ndarray, image: np.ndarray,
                          grid: int = 12, arrow_len: float = 7.0) -> np.ndarray:
     """visualizeFlowAsVectorField (CPU/OpticalFlow.cpp:160-183)."""
-    import cv2
+    cv2 = _cv2()
 
     out = np.ascontiguousarray(np.asarray(image)[..., :3]).copy()
     f = np.asarray(flow, np.float64)

@@ -1,7 +1,7 @@
 """NumPy oracle implementing the reference per-pixel semantics directly.
 
 Each function is a straight transliteration of the cited reference loops
-(SURVEY.md section 2) at small sizes, used to validate the vectorised TPU
+(SURVEY.md section 2) at small sizes, used to validate the vectorised
 formulations.  Deliberately slow and loop-based.
 """
 

@@ -1,6 +1,6 @@
 """Sequential per-pixel oracle of the reference pixflow solver and
 novel-view combiner (CPU/PixFlow.hpp, CPU/OpticalFlow.cpp), used to
-validate the TPU-native vectorised formulations.  Uses cv2 for the same
+validate the vectorised array formulations.  Uses cv2 for the same
 primitives the reference takes from OpenCV.  Slow by design; tiny images
 only."""
 

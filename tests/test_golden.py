@@ -66,10 +66,9 @@ def test_golden_six_input_search20():
 def test_vs_reference_binary_golden():
     """Fidelity against the ACTUAL reference binary's output, pinned at
     the smallest canvas the reference supports (its blend box-blur
-    kernels need >= 400 rows).  The golden was produced by
-    tools/compare_reference.py --canvas 900x400 on the seed-0 synthetic
-    set (tools/reference_baseline builds the reference C++ in place).
-    Runs in the default suite (the only default gate against the
+    kernels need >= 400 rows).  The golden is the reference C++ binary's
+    output at 900x400 on the seed-0 synthetic set.  Runs in the default
+    suite (the only default gate against the
     compiled reference; ~2.5 min of the budget)."""
     golden_path = os.path.join(GOLDEN_DIR, "reference_binary_900x400_low.png")
     golden = pio.read_image_rgba(golden_path)

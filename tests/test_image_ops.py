@@ -4,6 +4,7 @@ The reference pipeline is built on these OpenCV primitives; matching them
 closely is what makes the end-to-end SSIM gate achievable."""
 
 import cv2
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -68,6 +69,19 @@ def test_median5_matches_opencv(rng):
     ours = np.asarray(im.median5(flow))
     ref = cv2.medianBlur(flow, 5)
     np.testing.assert_allclose(ours, ref, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(26, 34), (3, 40, 52), (7, 5), (1, 9)])
+def test_median5_network_equals_sort(rng, shape):
+    """The sorting-network median gives exactly rank 12 of the sorted
+    25 window shifts: 2-D and 3-D (channel) inputs, odd and
+    smaller-than-window shapes."""
+    x = jnp.asarray(rng.standard_normal(shape).astype(np.float32))
+    if x.ndim == 3:
+        x = jnp.moveaxis(x, 0, 2)
+    stack = jnp.stack(im._median5_shifts(x), axis=0)
+    np.testing.assert_array_equal(np.asarray(im.median5(x)),
+                                  np.asarray(jnp.sort(stack, axis=0)[12]))
 
 
 def test_box_blur_matches_opencv(rng):

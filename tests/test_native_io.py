@@ -5,8 +5,13 @@ import pytest
 
 from panorama_opticalflow_tpu.utils import native_io as nio
 
-pytestmark = pytest.mark.skipif(not nio.have_native(),
-                                reason="libpanoio.so unavailable")
+
+
+@pytest.fixture(autouse=True)
+def _native():
+    """Build/load the library when a test runs, never at import."""
+    if not nio.have_native():
+        pytest.skip("libpanoio.so unavailable (native/build.sh failed)")
 
 
 def test_png_roundtrip(rng):

@@ -174,7 +174,7 @@ def test_chain_traces_each_program_once():
     """A numpy-input 6-photo chain must trace each windowed program
     exactly once (regression: mismatched committed/uncommitted input
     placements gave _geometry_jit and _finish_windowed_jit a second
-    trace -- and on TPU a second executable -- per chain)."""
+    trace -- and a second executable -- per chain)."""
     from panorama_opticalflow_tpu.utils import io as pio
 
     h, w = 96, 320

@@ -52,6 +52,38 @@ def test_init_runtime_idempotent():
     runtime.init_runtime(verbose=False, compilation_cache=False)
 
 
+def test_cache_dir_defaults_to_repo(monkeypatch):
+    import os
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert runtime.compilation_cache_dir() == os.path.join(repo, ".cache",
+                                                           "xla")
+
+
+def test_cache_dir_left_to_jax_when_env_set(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set the program sets no cache
+    directory of its own."""
+    import jax
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert runtime.compilation_cache_dir() is None
+    before = jax.config.jax_compilation_cache_dir
+    runtime.init_runtime(verbose=False)
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_time_call_blocks_and_counts(monkeypatch):
+    calls = []
+
+    def fn(x):
+        calls.append(x)
+        return x + 1
+
+    assert runtime.time_call(fn, 1, iters=3) >= 0.0
+    assert len(calls) == 4        # one warm-up call, three timed
+
+
 def test_stage_timer_profiler_trace(tmp_path, monkeypatch):
     """PANOSTITCH_TRACE_DIR (CLI --profile_dir) wraps each stage in a
     jax.profiler trace; the trace directory must be produced with

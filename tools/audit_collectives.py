@@ -18,7 +18,7 @@ import re
 import sys
 from collections import defaultdict
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
@@ -95,7 +95,7 @@ def main():
     total = [0, 0]
     for m in pat.finditer(txt):
         kind, shape, loc = m.group(1), m.group(2), resolve_loc(m.group(3))
-        srcs = re.findall(r'/root/repo/[\w/]*?([\w.]+\.py)":(\d+)', loc)
+        srcs = re.findall(r'/[\w/]*?([\w.]+\.py)":(\d+)', loc)
         src = f"{srcs[0][0]}:{srcs[0][1]}" if srcs else "?"
         by = shape_bytes(shape)
         key = (kind, src)

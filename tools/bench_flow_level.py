@@ -1,8 +1,7 @@
 #!/usr/bin/env python
 """Per-level cost decomposition of the batched pixflow solver.
 
-The 36 MP headline spends ~50% of its time in the flows stage
-(tools/bench_chain.py).  The pyramid has ~42 levels whose areas decay by
+The pyramid has ~42 levels whose areas decay by
 0.81x, so if per-level cost were pure area-proportional compute the
 total would be ~5.26x the finest level's cost; any excess is per-level
 FIXED overhead (kernel launches, block-gather warps, layout changes).
@@ -14,12 +13,13 @@ Usage: python tools/bench_flow_level.py [WxH of the flow canvas]
         9000x4000 headline's 3584-wide crop window at downscale 0.5)
 """
 
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from panorama_opticalflow_tpu.utils.runtime import init_runtime  # noqa: E402
 
@@ -30,10 +30,10 @@ import jax.numpy as jnp  # noqa: E402
 
 from panorama_opticalflow_tpu.models import pixflow  # noqa: E402
 from panorama_opticalflow_tpu.ops import image as im  # noqa: E402
-from panorama_opticalflow_tpu.ops.pallas import kernels  # noqa: E402
+from panorama_opticalflow_tpu.ops.pallas import relax  # noqa: E402
 from panorama_opticalflow_tpu.ops.relax_fast import warp_by_flow_tiled  # noqa: E402
 from panorama_opticalflow_tpu.utils.config import flow_params_by_name  # noqa: E402
-from tools.bench_micro import device_time  # noqa: E402
+from panorama_opticalflow_tpu.utils.runtime import time_call  # noqa: E402
 
 
 def level_components(h, w, params, iters=6):
@@ -47,52 +47,36 @@ def level_components(h, w, params, iters=6):
     gk, gs = params.gradient_blur_kernel_width, params.gradient_blur_sigma
     out = {}
 
-    t = device_time(lambda g: jax.vmap(
+    t = time_call(lambda g: jax.vmap(
         lambda x: im.gaussian_blur(im.sobel_x(x), gk, gs))(g), imgs,
         iters=iters)
     out["gradients(x2: x+y)"] = 2 * t
 
-    t = device_time(lambda p: jax.vmap(lambda x: im.gaussian_blur(
+    t = time_call(lambda p: jax.vmap(lambda x: im.gaussian_blur(
         x, params.blurred_flow_kernel_width,
         params.blurred_flow_sigma))(p), planes, iters=iters)
     out["blur15(x2: bf+diff)"] = 2 * t
 
-    t = device_time(lambda g, f: jax.vmap(warp_by_flow_tiled)(g, f),
+    t = time_call(lambda g, f: jax.vmap(warp_by_flow_tiled)(g, f),
                     i1g, flow, iters=iters)
     out["warp(x%d: phases)" % params.relax_phases] = \
         params.relax_phases * t
 
-    if kernels.on_tpu():
-        t = device_time(lambda g, f: jax.vmap(
-            lambda a, b: kernels.warp_tiled_pallas(a, b))(g, f),
-            i1g, flow, iters=iters)
-        out["warp_pallas(x%d, r4)" % params.relax_phases] = \
+    if relax.use_relax_kernel(h, w, params):
+        bf = flow + 0.1
+        t = time_call(lambda f, g, m, b: relax.relax_phase_batched(
+            f, f, g, imgs, imgs, b, m > 0.5, params,
+            params.relax_iters_per_phase, params.fast_window),
+            flow, i1g, mask, bf, iters=iters)
+        out["relax kernel(x%d: phases)" % params.relax_phases] = \
             params.relax_phases * t
 
-        def relax(f, g, m, bf):
-            return kernels.relax_phase_pallas(
-                f[..., 0], f[..., 1], f[..., 0], f[..., 1],
-                g[..., 0], g[..., 1], imgs, imgs,
-                bf[..., 0], bf[..., 1], m, params,
-                params.relax_iters_per_phase, params.fast_window,
-                tile=params.pallas_tile)
-
-        t = device_time(relax, flow, i1g, mask, flow, iters=iters)
-        out["relax(x%d: phases)" % params.relax_phases] = \
-            params.relax_phases * t
-
-        t = device_time(lambda p: kernels.median5_pallas(p), planes,
-                        iters=iters)
-        out["median(x%d: phases)" % params.relax_phases] = \
-            params.relax_phases * t
-
-        cpl = jnp.asarray(rng.rand(2, h, w).astype(np.float32))
-        t = device_time(lambda p, c: kernels.median5_diffuse_pallas(p, c),
-                        planes, cpl, iters=iters)
-        out["median5_diffuse(fused r3)"] = t
+    t = time_call(lambda p: jax.vmap(im.median5)(p), planes, iters=iters)
+    out["median(x%d: phases)" % params.relax_phases] = \
+        params.relax_phases * t
 
     nh, nw = int(h / 0.9 + 0.5), int(w / 0.9 + 0.5)
-    t = device_time(lambda p: jax.vmap(
+    t = time_call(lambda p: jax.vmap(
         lambda x: im.resize(x, (nh, nw), "cubic"))(p),
         planes, iters=iters)
     out["resize_up"] = t
@@ -109,7 +93,7 @@ def whole_level(h, w, params, iters=4):
         return pixflow.patch_match_level_batched(
             i, a, f, ("left", "right"), params)
 
-    return device_time(lvl, imgs, alphas, flow, iters=iters)
+    return time_call(lvl, imgs, alphas, flow, iters=iters)
 
 
 def main():

@@ -3,20 +3,21 @@
 
 Runs tiled_stitch_pair over meshes of 1, 2, 4, ..., N devices on the
 same canvas and reports throughput and parallel efficiency (the
-BASELINE.md multi-host metric; on a single host this exercises ICI/
-virtual-device scaling, on a pod slice run one process per host with
+BASELINE.md multi-host metric; on a single host this exercises the
+host's devices (or virtual CPU devices), on a cluster run one process per host with
 JAX_COORDINATOR_ADDRESS set and parallel/mesh.maybe_init_distributed).
 
 Usage: python tools/bench_scaling.py [WxH] [--cpu N]
 """
 
 import json
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
@@ -32,7 +33,9 @@ def main():
         os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                                    + f" --xla_force_host_platform_device_count={n}")
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.cache/xla")
+    from panorama_opticalflow_tpu.utils.runtime import init_runtime
+
+    init_runtime(verbose=False)
 
     import jax.numpy as jnp
 

@@ -2,18 +2,21 @@
 """Device-loop timing of each stitch_pair stage at a given canvas size,
 to find where the end-to-end time actually goes."""
 
+import os
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.cache/xla")
+from panorama_opticalflow_tpu.utils.runtime import init_runtime  # noqa: E402
 
-from tools.bench_micro import device_time  # noqa: E402
+init_runtime(verbose=False)
+
+from panorama_opticalflow_tpu.utils.runtime import time_call  # noqa: E402
 from panorama_opticalflow_tpu.models import novel_view, pixflow, stitcher  # noqa: E402
 from panorama_opticalflow_tpu.ops import image as im  # noqa: E402
 from panorama_opticalflow_tpu.ops.relax_fast import warp_by_flow_tiled  # noqa: E402
@@ -29,11 +32,11 @@ def main():
     il = jnp.asarray(photos[1])
     ir = jnp.asarray(top)
 
-    t = device_time(lambda a, b: stitcher.match_images(a, b), il, ir, iters=20)
+    t = time_call(lambda a, b: stitcher.match_images(a, b), il, ir, iters=20)
     print(f"match_images:        {t*1e3:8.2f} ms")
 
     cmap = stitcher.match_images(il, ir)
-    t = device_time(lambda m: stitcher.generate_blend(m, cfg)[0], cmap,
+    t = time_call(lambda m: stitcher.generate_blend(m, cfg)[0], cmap,
                     iters=5)
     print(f"generate_blend:      {t*1e3:8.2f} ms")
 
@@ -47,7 +50,7 @@ def main():
     we = ext_l.shape[1]
     dh, dw = h // 2, we // 2
 
-    t = device_time(lambda a: im.resize_u8(a, (dh, dw), "cubic"), ext_l,
+    t = time_call(lambda a: im.resize_u8(a, (dh, dw), "cubic"), ext_l,
                     iters=5)
     print(f"downscale u8 cubic:  {t*1e3:8.2f} ms")
 
@@ -55,31 +58,31 @@ def main():
     sizes = pixflow.pyramid_sizes(dh, dw, params)
     print(f"pyramid: {len(sizes)} levels, base {sizes[0]}")
     g = jnp.zeros((dh, dw), jnp.float32)
-    t = device_time(lambda a: im.resize(a, sizes[1], "linear"), g, iters=10)
+    t = time_call(lambda a: im.resize(a, sizes[1], "linear"), g, iters=10)
     print(f"one pyr resize:      {t*1e3:8.2f} ms")
 
     flow = jnp.zeros((dh, dw, 2), jnp.float32)
-    t = device_time(lambda f: im.resize(f, (sizes[0][0] + 40,
+    t = time_call(lambda f: im.resize(f, (sizes[0][0] + 40,
                                             sizes[0][1] + 44), "cubic"),
                     flow, iters=10)
     print(f"one flow upsample:   {t*1e3:8.2f} ms")
 
     i1g = jnp.stack([g, g], -1)
-    t = device_time(lambda f: warp_by_flow_tiled(i1g, f), flow, iters=5)
+    t = time_call(lambda f: warp_by_flow_tiled(i1g, f), flow, iters=5)
     print(f"warp_by_flow_tiled:  {t*1e3:8.2f} ms")
 
-    t = device_time(lambda f: im.gaussian_blur(f, 15, 8.0), flow, iters=10)
+    t = time_call(lambda f: im.gaussian_blur(f, 15, 8.0), flow, iters=10)
     print(f"blurred-flow blur:   {t*1e3:8.2f} ms")
 
     fl = jnp.zeros((h, w, 2), jnp.float32)
     blend = jnp.zeros((h, w), jnp.float32)
-    t = device_time(lambda a, b, f1, f2, bl:
+    t = time_call(lambda a, b, f1, f2, bl:
                     novel_view.combine_novel_views(a, b, f1, f2, bl),
                     ol, orr, fl, fl, blend, iters=5)
     print(f"combine_novel_views: {t*1e3:8.2f} ms")
 
     merged = jnp.zeros((h, w, 4), jnp.uint8)
-    t = device_time(lambda m, a, b, mm:
+    t = time_call(lambda m, a, b, mm:
                     stitcher.gather_composite(m, a, b, mm, cfg),
                     cmap, il, ir, merged, iters=5)
     print(f"gather_composite:    {t*1e3:8.2f} ms")
@@ -90,7 +93,7 @@ def main():
     i0 = jnp.zeros((lh, lw), jnp.float32)
     a0 = jnp.ones((lh, lw), jnp.float32)
     fl0 = jnp.zeros((lh, lw, 2), jnp.float32)
-    t = device_time(lambda a, b, c, d, f:
+    t = time_call(lambda a, b, c, d, f:
                     pixflow.patch_match_level(a, b, c, d, f, "left", params),
                     i0, i0, a0, a0, fl0, iters=3)
     print(f"patch_match_level {lh}x{lw}: {t*1e3:8.2f} ms")
@@ -99,7 +102,7 @@ def main():
     imgs = jnp.zeros((2, lh, lw), jnp.float32)
     alphas = jnp.ones((2, lh, lw), jnp.float32)
     flb = jnp.zeros((2, lh, lw, 2), jnp.float32)
-    t = device_time(lambda a, b, f:
+    t = time_call(lambda a, b, f:
                     pixflow.patch_match_level_batched(
                         a, b, f, ("left", "right"), params),
                     imgs, alphas, flb, iters=3)
@@ -110,7 +113,7 @@ def main():
     imgs0 = jnp.zeros((2, lh0, lw0), jnp.float32)
     alphas0 = jnp.ones((2, lh0, lw0), jnp.float32)
     flb0 = jnp.zeros((2, lh0, lw0, 2), jnp.float32)
-    t = device_time(lambda a, b, f:
+    t = time_call(lambda a, b, f:
                     pixflow.patch_match_level_batched(
                         a, b, f, ("left", "right"), params),
                     imgs0, alphas0, flb0, iters=3)

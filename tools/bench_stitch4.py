@@ -13,7 +13,7 @@ import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main() -> int:
@@ -40,8 +40,7 @@ def main() -> int:
     photos = [jax.device_put(p, dev)
               for p in pio.synthesize_four_input_set(h, w, seed=0)]
 
-    def force(x):
-        return np.asarray(x[:1, :1, :1])
+    force = jax.block_until_ready
 
     t0 = time.time()
     force(pipeline.stitch_four(photos, cfg))

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Measure the sharding (tiling) overhead term of scaling efficiency on
-the ONE real chip (VERDICT r2 item 5): a 1-device-mesh tiled_stitch_pair
+one device: a 1-device-mesh tiled_stitch_pair
 vs the untiled stitch_pair on identical inputs -- same arithmetic path,
 plus the halo exchanges (self-copies on 1 device), tiled resizes, and
 distance-scan all_to_alls.  Prints one JSON line.
@@ -10,10 +10,11 @@ Usage: python tools/bench_tiled_overhead.py [--canvas WxH] [--window]
 
 import argparse
 import json
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main() -> int:
@@ -22,9 +23,6 @@ def main() -> int:
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--window", action="store_true",
                     help="use the planned overlap column window on both")
-    ap.add_argument("--kernels", action="store_true",
-                    help="enable Pallas kernels inside shard_map "
-                         "(use_pallas_in_shardmap=True)")
     args = ap.parse_args()
     w, h = (int(t) for t in args.canvas.split("x"))
 
@@ -52,9 +50,6 @@ def main() -> int:
     # production halo: includes the |flow_y| sampling margin (a
     # zero-margin run scored SSIM 0.915 on a vertical-flow pair)
     tc = tiled.TileConfig.for_params(cfg.flow_params)
-    if args.kernels:
-        import dataclasses
-        tc = dataclasses.replace(tc, use_pallas_in_shardmap=True)
     mesh = make_mesh(1)
 
     window = None
@@ -62,8 +57,7 @@ def main() -> int:
         window = crop.pair_window(
             np.asarray(stitcher.match_images(il, ir)), cfg)
 
-    def force(x):
-        return np.asarray(x[:1, :1, :1])
+    force = jax.block_until_ready
 
     def timed(fn):
         t0 = time.time()
@@ -100,10 +94,6 @@ def main() -> int:
         "compile_untiled_s": round(c_untiled, 1),
         "compile_tiled_s": round(c_tiled, 1),
         "flow_mode": tc.flow_mode,
-        "kernels_in_shardmap": tc.use_pallas_in_shardmap,
-        "shardmap_gates": [tc.shardmap_relax_kernels,
-                           tc.shardmap_fused_blurs,
-                           tc.shardmap_warp_kernel],
     }))
     return 0
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Regenerate the golden stitched outputs pinned by tests/test_golden.py.
 
-Run on the CPU backend (deterministic, no TPU needed):
+Run on the CPU backend (deterministic, no accelerator needed):
 
     python tools/make_golden.py
 

@@ -8,7 +8,7 @@ This exercises the exact multi-host code path (parallel.mesh.
 maybe_init_distributed via the standard JAX_COORDINATOR_* env vars,
 global mesh construction, make_array_from_callback sharding, halo
 exchange and distance-scan collectives crossing the process boundary)
-that a >= 2-host TPU pod run would take; only the transport differs.
+that a >= 2-host cluster run would take; only the transport differs.
 
 Run with no arguments: spawns both workers, waits, validates the
 sharded result against the single-process pipeline (SSIM), prints one

@@ -26,10 +26,12 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/tests")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests"))
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.cache/xla")
+from panorama_opticalflow_tpu.utils.runtime import init_runtime  # noqa: E402
+
+init_runtime(verbose=False)
 
 
 def main():
@@ -79,7 +81,7 @@ def main():
         from panorama_opticalflow_tpu.utils.metrics import ssim
 
         golden = pio.read_image_rgba(os.path.join(
-            "/root/repo/tests/golden", "reference_binary_900x400_low.png"))
+            os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests", "golden"), "reference_binary_900x400_low.png"))
         photos, top = pio.synthesize_fisheye_set(400, 900, n=5, seed=0)
         t0 = time.time()
         out = np.asarray(pipeline.stitch_six(
