@@ -416,7 +416,7 @@ def _level_core(
 
     use_fast = params.relax_impl == "fast" and not coarsest
     if use_fast:
-        use_kernel = relax.use_relax_kernel(h, w, params)
+        use_kernel = relax.use_relax_kernel(h, w)
         blurred_flow = _from_planes(jax.vmap(lambda f: im.gaussian_blur(
             f, params.blurred_flow_kernel_width,
             params.blurred_flow_sigma))(_as_planes(flow)), nb)

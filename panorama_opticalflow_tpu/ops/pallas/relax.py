@@ -41,6 +41,11 @@ from panorama_opticalflow_tpu.utils.config import FlowParams
 # sweep on the card that chose them.
 BLOCK = (8, 64)
 NUM_WARPS = 8
+# Smallest level (pixels per direction) relaxed by the kernels on the
+# GPU: the smallest size of the card sweep (64x256, 1.9x XLA's version;
+# the kernels won at every size of that sweep, PERF.md).  Smaller
+# levels are launch-bound either way and run the jnp reference.
+MIN_PIXELS = 64 * 256
 
 
 def kernel_platform(platform: str | None = None) -> bool:
@@ -56,13 +61,11 @@ def kernel_platform(platform: str | None = None) -> bool:
         f"unsupported JAX platform {platform!r}: expected 'gpu' or 'cpu'")
 
 
-def use_relax_kernel(h: int, w: int, params: FlowParams,
-                     platform: str | None = None) -> bool:
+def use_relax_kernel(h: int, w: int, platform: str | None = None) -> bool:
     """The one place that chooses kernel vs jnp relaxation for an
     (h, w) level: the kernels on the GPU for levels of at least
-    ``params.relax_kernel_min_pixels``, the jnp reference otherwise."""
-    return (kernel_platform(platform)
-            and h * w >= params.relax_kernel_min_pixels)
+    ``MIN_PIXELS``, the jnp reference otherwise."""
+    return kernel_platform(platform) and h * w >= MIN_PIXELS
 
 
 def _hat(t):

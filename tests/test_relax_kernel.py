@@ -93,12 +93,13 @@ def test_kernel_platform_rejects_other_backends(platform):
         relax.kernel_platform(platform)
 
 
-def test_use_relax_kernel_threshold():
-    p = flow_params_by_name("pixflow_low_fast")
-    n = p.relax_kernel_min_pixels
-    assert relax.use_relax_kernel(n // 64, 64, p, "gpu")
-    assert not relax.use_relax_kernel(n // 64 - 1, 64, p, "gpu")
-    assert not relax.use_relax_kernel(n, n, p, "cpu")
+def test_use_relax_kernel_threshold(monkeypatch):
+    n = relax.MIN_PIXELS
+    assert relax.use_relax_kernel(n // 64, 64, "gpu")
+    assert not relax.use_relax_kernel(n // 64 - 1, 64, "gpu")
+    assert not relax.use_relax_kernel(n, n, "cpu")
+    monkeypatch.setattr(relax, "MIN_PIXELS", 0)
+    assert relax.use_relax_kernel(1, 1, "gpu")
 
 
 @pytest.fixture
@@ -116,31 +117,38 @@ def test_level_core_dispatches_to_kernel(rng, kernel_in_interpreter):
     imgs = jnp.asarray(rng.random((2, 40, 96)).astype(np.float32))
     alphas = jnp.ones((2, 40, 96), jnp.float32)
     flow = jnp.asarray(rng.normal(0, 0.5, (2, 40, 96, 2)).astype(np.float32))
-    p = dataclasses.replace(flow_params_by_name("pixflow_low"),
-                            relax_kernel_min_pixels=0)
+    p = flow_params_by_name("pixflow_low")
     calls = []
     orig = relax.relax_phase_batched
     with pytest.MonkeyPatch.context() as m:
+        m.setattr(relax, "MIN_PIXELS", 0)
         m.setattr(relax, "relax_phase_batched",
                   lambda *a: calls.append(1) or orig(*a))
         got = pixflow.patch_match_level_batched(imgs, alphas, flow,
                                                 ("left", "right"), p)
     assert calls
-    ref = pixflow.patch_match_level_batched(
-        imgs, alphas, flow, ("left", "right"),
-        dataclasses.replace(p, relax_kernel_min_pixels=10 ** 12))
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(relax, "MIN_PIXELS", 10 ** 12)
+        m.setattr(relax, "relax_phase_batched",
+                  lambda *a: calls.append(2) or orig(*a))
+        ref = pixflow.patch_match_level_batched(
+            imgs, alphas, flow, ("left", "right"), p)
+    assert 2 not in calls
     _check(got, ref)
 
 
-def test_partitioned_kernel_over_tile_batch(rng, kernel_in_interpreter):
-    """The one-kernel shard_map splits the tile batch over the mesh."""
+@pytest.mark.parametrize("axis", ["y", None])
+def test_partitioned_kernel_over_tile_batch(rng, kernel_in_interpreter, axis):
+    """The one-kernel shard_map splits the tile batch over the mesh
+    (``axis``), or runs it whole on every device (``None``, the hybrid
+    solver's replicated levels)."""
     from panorama_opticalflow_tpu.ops.pallas.partition import (
         PartitionedKernels)
     from panorama_opticalflow_tpu.parallel.mesh import make_mesh
 
     a = _inputs(rng, (4, 16, 72))
     p = _params()
-    got = PartitionedKernels(make_mesh(2), "y").relax_phase_batched(
+    got = PartitionedKernels(make_mesh(2), axis).relax_phase_batched(
         *a, p, 2, 2)
     ref = jax.vmap(lambda *z: rf.relax_phase_fast(*z, p, 2, 2))(*a)
     _check(got, ref)

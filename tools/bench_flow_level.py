@@ -62,7 +62,7 @@ def level_components(h, w, params, iters=6):
     out["warp(x%d: phases)" % params.relax_phases] = \
         params.relax_phases * t
 
-    if relax.use_relax_kernel(h, w, params):
+    if relax.use_relax_kernel(h, w):
         bf = flow + 0.1
         t = time_call(lambda f, g, m, b: relax.relax_phase_batched(
             f, f, g, imgs, imgs, b, m > 0.5, params,

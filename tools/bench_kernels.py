@@ -134,7 +134,7 @@ def bench_median(shape) -> list[dict]:
 
 def bench_threshold(params) -> list[dict]:
     """Relax kernel vs XLA on small levels: where the kernel starts to
-    pay (FlowParams.relax_kernel_min_pixels)."""
+    pay (relax.MIN_PIXELS)."""
     out = []
     for shape in ((64, 256), (128, 256), (128, 512), (256, 512),
                   (256, 1024), (512, 1024)):
